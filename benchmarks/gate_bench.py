@@ -1,6 +1,5 @@
-"""Gate-bootstrap throughput: NTT path vs MXU toeplitz path on real TPU.
-
-Trustworthy timing (host round trip forced; see timing.py).
+"""Gate-bootstrap throughput: NTT path vs int8 toeplitz (mxu) path on the
+device, with synthetic keys; every timing ends in jax.block_until_ready.
 
 Usage: python benchmarks/gate_bench.py [ntt|mxu|both] [param] [batches]
   param: tfhe_lib (default) | default | tpu128
@@ -51,13 +50,12 @@ def main():
             lin = jnp.asarray(rng.integers(0, 1 << 32, size=(batch, n + 1), dtype=np.uint32))
             f = jax.jit(lambda c: fn(keys, c))
             try:
-                out = f(lin)
-                np.asarray(out[0, :8])  # forced completion (warmup+compile)
+                jax.block_until_ready(f(lin))  # warmup + compile
                 t0 = time.perf_counter()
                 reps = 3
                 for _ in range(reps):
                     out = f(lin)
-                    np.asarray(out[0, :8])
+                jax.block_until_ready(out)
                 dt = (time.perf_counter() - t0) / reps
             except Exception as e:  # noqa: BLE001
                 print(f"{name} batch {batch}: FAIL {str(e)[:120]}", file=sys.stderr)

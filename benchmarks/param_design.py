@@ -1,9 +1,9 @@
-"""TPU-first parameter co-design sweep (concrete_tpu/design.py driver).
+"""Parameter co-design sweep: runs concrete_tpu/design.py's search.
 
-Ranks 128-bit-secure boolean parameter points by modeled v5e gate
-throughput under the chained worst-case error constraint. The top point is
-shipped as params.TPU128_PARAMETERS; measured numbers for it are in
-docs/performance.md.
+Ranks 128-bit-secure boolean parameter points by modeled gate throughput
+(design.CostModel: shapes at the H100's data-sheet peaks) under the
+chained worst-case error constraint. The top point is shipped as
+params.TPU128_PARAMETERS; its measured throughput is in PERF.md.
 
 Usage: python benchmarks/param_design.py [target_err_log2] [batch]
 """

@@ -2,8 +2,8 @@
 
 Shards a gate-bootstrap batch over all visible devices (dp), keys
 replicated, and reports per-chip throughput + scaling efficiency vs the
-single-device rate. On a 1-chip host this degenerates to the headline
-bench; on a pod slice it measures ICI/DCN scaling.
+single-device rate. On a 1-card host this degenerates to the headline
+bench; on a 4-card host it measures NVLink scaling.
 
 Usage: python benchmarks/scaling.py [per_chip_batch] [tfhe_lib|default]
 """

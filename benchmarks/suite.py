@@ -1,14 +1,13 @@
 """Per-operation benchmark suite — the criterion-harness analog.
 
 Mirrors concrete-benchmark/src/generics/ (42 generic engine benches): every
-engine-level operation timed over a parameter grid, batched (the TPU unit of
-work is a ciphertext batch, not a single ciphertext). Emits one JSON line per
+engine-level operation timed over a parameter grid, batched (the device's
+unit of work is a ciphertext batch, not a single ciphertext). Emits one JSON line per
 (op, params, batch) to stdout; human-readable table to stderr.
 
-Small ops are CHAINED inside one jit (scan) so the committed numbers measure
-device compute, not the ~25 ms host round trip of the remote platform
-(docs/performance.md "Reproducing"). Heavy ops (>= tens of ms) are timed per
-dispatch with a forced host pull.
+Small ops are CHAINED inside one jit (scan) so the numbers measure device
+compute, not per-dispatch host overhead. Heavy ops (>= tens of ms) are
+timed per dispatch, each ending in jax.block_until_ready.
 
 Usage: python benchmarks/suite.py [--ops op1,op2] [--batch 1024] [--quick]
 """
@@ -29,17 +28,13 @@ from benchmarks.timing import time_device  # noqa: E402
 
 
 def _timeit(fn, *args, reps=3):
-    """Per-dispatch timing for heavy ops; forces completion with a tiny host
-    pull per call (block_until_ready can return at enqueue time here)."""
+    """Per-dispatch timing for heavy ops, each call device-synchronized."""
+    import jax
 
-    def pull(out):
-        leaf = out[0] if isinstance(out, (tuple, list)) else out
-        np.asarray(leaf.ravel()[:1])  # slice device-side, pull 4 bytes
-
-    pull(fn(*args))
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(reps):
-        pull(fn(*args))
+        jax.block_until_ready(fn(*args))
     return (time.perf_counter() - t0) / reps
 
 
@@ -112,7 +107,7 @@ def main():
             """Small op: `step` maps the carry to a same-structure carry;
             `reps` applications chained in one jit (no dispatch overhead).
             Elementwise ops get thousands of reps so the chain's device time
-            clears the host-RTT measurement floor."""
+            clears the dispatch-overhead floor."""
             if wanted(op):
                 record(op, pname, time_device(step, init, reps=reps), unit)
 
@@ -279,8 +274,8 @@ def main():
         big64 = jnp.asarray(rng.integers(
             0, 1 << 64, size=(B, cfg64.big_lwe_dimension + 1), dtype=np.uint64))
 
-        # TPU has no 64-bit dot: the limb-plane path is the production
-        # u64 keyswitch (lwe.keyswitch_limbs, like LWEKSK.run_keyswitch)
+        # the limb-plane path is the accelerator's u64 keyswitch
+        # (lwe.keyswitch_limbs, like LWEKSK.run_keyswitch off the CPU)
         ksk8 = jnp.asarray(lwe_ops.ksk_to_limbs(np.asarray(ksk64)))
 
         def ks64_step(bc):
@@ -296,7 +291,7 @@ def main():
     if wanted("nuss"):
         from concrete_tpu.core import bootstrap_nuss as bsn
 
-        Bn = min(B, 256)  # large-N rows: batch capped by the N=16384 VMEM/HBM
+        Bn = min(B, 256)  # large-N rows: batch capped by device memory
         for N in ([8192] if args.quick else [8192, 16384]):
             for bits_n in (32, 64):
                 dtn = np.uint32 if bits_n == 32 else np.uint64

@@ -1,7 +1,9 @@
-"""concrete-tpu: a TPU-native TFHE (fully homomorphic encryption over the torus) framework.
+"""concrete-tpu: a TFHE (fully homomorphic encryption over the torus) framework
+in JAX, whose server side runs on an accelerator (an NVIDIA GPU; the CPU for
+tests).
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the Zama `concrete`
-ecosystem (reference: /root/reference, kc1212/concrete):
+Built from scratch in JAX/XLA with the capabilities of the Zama `concrete`
+ecosystem (reference: kc1212/concrete):
 
 - LWE / GLWE / GGSW encryption over the discretized torus (u32 / u64)
 - forkable AES-128-CTR CSPRNG with deterministic fork-tree semantics
@@ -10,16 +12,16 @@ ecosystem (reference: /root/reference, kc1212/concrete):
 - an analytic noise-propagation estimator (`concrete_tpu.npe`)
 - boolean-gate and encoder-based user APIs
 - batch-first design: every server-side op is a jitted pure function over
-  ciphertext batches, sharded across a TPU mesh with `shard_map`.
+  ciphertext batches, sharded across a device mesh with `shard_map`.
 
 Design stance (vs the reference's Rust/FFTW):
 - client-side ops (keygen / encrypt / decrypt) run host-side in numpy and are
   bit-reproducible under fixed seeds, mirroring the reference's CSPRNG fork
   discipline byte for byte;
-- server-side ops (PBS, keyswitch, gate evaluation) run on TPU, with the
-  negacyclic polynomial product implemented as an exact prime-modulus NTT
-  (u32 Montgomery arithmetic + CRT), so homomorphic arithmetic is exact where
-  the reference's f64 FFT is approximate.
+- server-side ops (PBS, keyswitch, gate evaluation) run on the device, with
+  the negacyclic polynomial product computed exactly — as an int8 toeplitz
+  matmul or a prime-modulus NTT + CRT — where the reference's f64 FFT is
+  approximate.
 """
 
 import os as _os
@@ -30,16 +32,14 @@ import jax as _jax
 # concrete/src/lib.rs:22). Enable 64-bit types before any array is created.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: NTT/PBS programs are deep (log2(N) unrolled
-# stages x CRT primes) and recompile cost dominates on small hosts.
-_cache_dir = _os.environ.get(
-    "CONCRETE_TPU_CACHE_DIR", _os.path.join(_os.path.dirname(__file__), "..", ".jax_cache")
-)
-try:
-    _jax.config.update("jax_compilation_cache_dir", _os.path.abspath(_cache_dir))
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-except Exception:  # older jax without these flags
-    pass
+# Persistent compilation cache: JAX reads JAX_COMPILATION_CACHE_DIR itself;
+# without it the cache sits at a fixed path in the checkout (the path is part
+# of the cache key, so it must not move between runs).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.abspath(_os.path.join(_os.path.dirname(__file__), "..", ".jax_cache")))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
 
 from . import dispersion, params  # noqa: E402,F401
 

@@ -5,7 +5,7 @@ Mirrors the `concrete-boolean` crate: booleans encode as +-1/8 on the torus
 constant 1/8 test polynomial + keyswitch (server_key/mod.rs), NOT is a free
 negation, MUX costs two PBS. Unlike the reference's one-ciphertext-at-a-time
 API, every operation here is batched: ciphertext arrays [..., n+1] evaluate
-whole gate vectors per call — the TPU scaling unit.
+whole gate vectors per call — the device's unit of work.
 """
 
 from .client_key import ClientKey, PLAINTEXT_TRUE, PLAINTEXT_FALSE

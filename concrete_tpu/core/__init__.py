@@ -6,7 +6,7 @@ Split by trust/performance boundary, mirroring FHE deployment:
   bit-reproducible under fixed CSPRNG seeds (reference semantics:
   concrete-core .../crypto/);
 - *server side* (keyswitch, external product, blind rotation, PBS) runs as
-  jitted JAX functions over ciphertext batches on TPU.
+  jitted JAX functions over ciphertext batches on the device.
 """
 
 from .lwe import LweSecretKey, LweKeyswitchKey

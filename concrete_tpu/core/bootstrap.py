@@ -10,14 +10,14 @@ Reference algorithms (crypto/bootstrap/fourier/mod.rs):
 - pbs_modulus_switch (:728-748) with ModulusSwitchOffset / LutCountLog knobs;
 - constant_sample_extract (:750-790); bootstrap (:878-911).
 
-TPU-first redesign vs the reference:
+Redesign vs the reference:
 - the f64 FFT becomes an exact prime-NTT (u32 Montgomery lanes) + CRT;
 - the per-ciphertext "skip if mask == 0" branch (fourier/mod.rs:710) is
   dropped: a zero rotation makes ct1 == ct0, the decomposition of the zero
   difference is all-zero digits, and the external product contributes exactly
   0 — so the branchless chain is bit-identical and fully batched;
-- the n-iteration CMux chain is a lax.fori_loop carrying the accumulator,
-  with the NTT-domain bootstrap key streamed from HBM.
+- the n-iteration CMux chain is a lax.scan carrying the accumulator,
+  with the NTT-domain bootstrap key streamed from device memory.
 
 Example (modulus switch to the 2N grid):
     >>> import numpy as np
@@ -266,35 +266,14 @@ def blind_rotate(cfg: ServerConfig, bsk_ntt, lut, lwe, *, ms_offset: int = 0,
         pbs_modulus_switch(lwe_flat[..., :-1], n_poly, ms_offset, lut_count_log),
         -1, 0)  # [n, B]
 
-    import os
-
-    use_pallas = (
-        os.environ.get("CONCRETE_TPU_PALLAS_CMUX", "0") == "1"
-        and cfg.bits == 32
-        and len(cfg.primes) == 2
-    )
-    if use_pallas:
-        from ..ops import pallas_cmux
-
-        b_total = lwe_flat.shape[0]
-        tile = int(os.environ.get("CONCRETE_TPU_PALLAS_TILE", "64"))
-        kern = pallas_cmux.make_cmux_kernel(cfg, tile_b=min(b_total, tile))
-
-        def step(acc, xs):
-            ggsw_i, a_hat = xs
-            return kern(acc, a_hat, ggsw_i), None
-
-    else:
-
-        def step(acc, xs):
-            ggsw_i, a_hat = xs  # [P, l, k+1, k+1, N], [B]
-            rotated = polynomial.negacyclic_monomial_mul(acc, a_hat[None, :])
-            diff = rotated - acc
-            return acc + _external_product_stacked(cfg, sp, ggsw_i, diff), None
+    def step(acc, xs):
+        ggsw_i, a_hat = xs  # [P, l, k+1, k+1, N], [B]
+        rotated = polynomial.negacyclic_monomial_mul(acc, a_hat[None, :])
+        diff = rotated - acc
+        return acc + _external_product_stacked(cfg, sp, ggsw_i, diff), None
 
     # lax.scan (not fori_loop): the bootstrap key streams through the loop as
-    # a scanned input, which XLA pipelines as contiguous per-slice HBM reads;
-    # an indexed fori_loop measured ~400x slower on TPU.
+    # a scanned input, one contiguous per-iteration slice
     acc, _ = jax.lax.scan(step, acc, (bsk_ntt, a_hats))
     return jnp.moveaxis(acc, 0, 1).reshape(lead + acc.shape[:1] + acc.shape[2:])
 

@@ -1,13 +1,13 @@
 """Large-N programmable bootstrapping: the external product computed in the
-Nussbaumer domain — 2L independent M-point toeplitz matmuls on the MXU.
+Nussbaumer domain — 2L independent M-point int8 toeplitz matmuls.
 
-The direct MXU path (core/bootstrap_mxu.py) is an O(N^2) toeplitz matmul;
+The direct toeplitz path (core/bootstrap_mxu.py) is an O(N^2) toeplitz matmul;
 its per-iteration RHS grows to gigabytes past N=4096, which is why it
 refuses large polynomials. Here every polynomial lives as 2L strided chunks
 of size M = N/L (math/nussbaumer.py): the negacyclic N-product becomes 2L
 POINTWISE M-point negacyclic products — O(N^2/L) MACs and O(N^2/L) table
 bytes — with rotation-only (multiplication-free) transforms on either side.
-That puts N = 8192 and 16384 on the MXU fast path; the reference supports
+That puts N = 8192 and 16384 on the int8 matmul path; the reference supports
 exactly these sizes through FFTW (concrete-core .../math/fft/mod.rs:28).
 
 Exactness: every step is integer arithmetic. Digits are transformed as
@@ -21,8 +21,8 @@ whole pipeline is BIT-IDENTICAL to the direct toeplitz path and the NTT
 path on BOTH torus widths (tests/test_nussbaumer.py).
 
 Reference algorithm being replaced: blind_rotate / external_product
-(crypto/bootstrap/fourier/mod.rs:463-726) — same semantics, TPU-native
-large-N execution.
+(crypto/bootstrap/fourier/mod.rs:463-726) — same semantics, large N run
+as batched int8 matrix products.
 """
 
 from __future__ import annotations
@@ -38,24 +38,6 @@ from ..math import decomposition, nussbaumer as nb, polynomial
 from . import lwe as lwe_ops
 from .bootstrap import ServerConfig, pbs_modulus_switch, sample_extract
 from . import bootstrap_mxu as bsx
-
-
-# Compile-validated envelope of the fused recombine kernels: the
-# butterflies unroll half-per-stage negrolls, and the 2L=256 instance
-# (N=16384, L=128) ran the remote Mosaic compiler past 25 minutes.
-# best_l's chunking preference and every runtime kernel gate share this.
-KERNEL_TWO_L_MAX = 64
-
-
-def _recombine_tile(b: int, two_l: int, ks1: int, lu: int, m: int) -> int:
-    """Batch-tile rows for the fused recombine kernels: the s block
-    [2L, T, ks1*lu*M] i32 double-buffered within a ~12 MB budget,
-    power-of-two rows so the tile divides every power-of-two batch."""
-    budget = max(8, (12 << 20) // (two_l * ks1 * lu * m * 4))
-    tile = min(b, 1 << (budget.bit_length() - 1))
-    while b % tile:
-        tile //= 2
-    return tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,18 +57,10 @@ class NussPlan:
 
     @classmethod
     def best_l(cls, cfg: ServerConfig) -> int:
-        """Config-aware default chunk count: among feasible L, prefer the
-        KERNEL-ELIGIBLE chunkings (2L <= 64 — the fused recombine kernel's
-        compile envelope) and within them minimize the per-iteration MXU
-        work 2L * n_sub * limbs * M^2, tying to the SMALLER L. The MACs
-        model alone picked L=128 at N=16384, but the fused-kernel
-        economics dominate: measured 351 PBS/s at L=32 (kernel) vs 103 at
-        L=128 (XLA recombine, 2x fewer MACs) on v5e — 3.4x, plus half the
-        key bytes. Chunkings past the envelope are used only when no
-        eligible L exists. The preference is NOT conditioned on running on
-        TPU — keys converted on a CPU host must match the TPU serving
-        layout, so off-TPU (test/reference) runs accept the ~2x dot-MAC
-        tradeoff at N=16384 for layout portability.
+        """Config-aware default chunk count: among feasible L, minimize the
+        per-iteration int8 product work 2L * n_sub * limbs * M^2, tying to
+        the SMALLER L. The choice depends on the config alone, never on the
+        device, so keys converted on one host serve on any other.
 
         >>> from concrete_tpu.core.bootstrap import ServerConfig
         >>> cfg = ServerConfig(lwe_dimension=100, glwe_dimension=1,
@@ -97,7 +71,7 @@ class NussPlan:
         >>> NussPlan.best_l(ServerConfig(lwe_dimension=100,
         ...     glwe_dimension=1, polynomial_size=16384, pbs_base_log=2,
         ...     pbs_level=3, ks_base_log=2, ks_level=5))
-        32
+        128
         """
         n = cfg.polynomial_size
         candidates = []
@@ -111,12 +85,12 @@ class NussPlan:
                     l *= 2
                     continue
                 cost = 2 * l * plan.n_sub * plan.limbs_used * m * m
-                candidates.append((2 * l > KERNEL_TWO_L_MAX, cost, l))
+                candidates.append((cost, l))
             l *= 2
         if not candidates:
             raise NotImplementedError(
                 f"no feasible Nussbaumer chunking for N={n}")
-        return min(candidates)[2]
+        return min(candidates)[1]
 
     @classmethod
     def from_config(cls, cfg: ServerConfig, l: int | None = None) -> "NussPlan":
@@ -147,7 +121,7 @@ class NussPlan:
         k_rows = plan.row_blocks * plan.m
         if k_rows * 64 * 128 >= 2 ** 31:
             raise NotImplementedError(
-                f"int32 MXU accumulation bound exceeded (K={k_rows})")
+                f"int32 accumulation bound exceeded (K={k_rows})")
         if plan.bits == 32 and plan.bits + plan.shift > 64 - plan.shift:
             # u32 torus is carried in u64 words host-side: (v >> shift)
             # mod 2^bits must be below the garbage-bit floor. The u64 torus
@@ -384,6 +358,14 @@ def _digit_matrix_nuss(plan: NussPlan, diff_cm):
     return jnp.concatenate(parts, axis=-1)         # [B, 2L, R'*M]
 
 
+def _pair_neg(lo, hi):
+    """-(x) mod 2^(2w) on a (lo, hi) word pair: the borrow out of the low
+    word is 1 exactly when lo != 0."""
+    zero = lo.dtype.type(0)
+    nz = (lo != zero).astype(lo.dtype)
+    return zero - lo, (zero - hi) - nz
+
+
 def _pair_add(al, ah, bl_, bh):
     lo = al + bl_
     return lo, ah + bh + (lo < al).astype(al.dtype)
@@ -396,29 +378,25 @@ def _pair_sub(al, ah, bl_, bh):
 
 def _pair_negroll(lo, hi, shift: int):
     """(lo, hi) * Z^shift in R_M, static shift, negacyclic on the last
-    axis — the u32 word-pair twin of nussbaumer._neg_roll_static (v5e
-    emulates i64/u64 lanes, so the 64-bit inverse transform runs on
-    explicit pairs instead)."""
+    axis — the word-pair twin of nussbaumer._neg_roll_static, for values
+    wider than one lane (the u64 torus carried mod 2^128)."""
     m = lo.shape[-1]
     shift = shift % (2 * m)
     neg = shift >= m
     shift = shift % m
     if shift:
-        nl, nh = bsx._pair_neg(lo[..., m - shift:], hi[..., m - shift:])
+        nl, nh = _pair_neg(lo[..., m - shift:], hi[..., m - shift:])
         lo = jnp.concatenate([nl, lo[..., : m - shift]], axis=-1)
         hi = jnp.concatenate([nh, hi[..., : m - shift]], axis=-1)
     if neg:
-        lo, hi = bsx._pair_neg(lo, hi)
+        lo, hi = _pair_neg(lo, hi)
     return lo, hi
 
 
 def _recombine_nuss_u64(plan: NussPlan, s):
-    """u64-lane variant of _recombine_nuss: limb recombination into u64,
-    inverse transform + fold in u64, shift. i64 lanes are emulated on v5e
-    but XLA's emulation measured FASTER than the explicit pair form (823 vs
-    665 ms at N=8192/L=64/B=256 — the pair butterflies carry 2 planes plus
-    carries through every stage). Kept as the default; the pair form stays
-    selectable (CONCRETE_TPU_NUSS_INV=pair) for re-evaluation."""
+    """u32-torus recombine: limb recombination into u64 lanes (exact mod
+    2^w_prime <= 2^64), inverse transform + fold in u64, deferred /2L as a
+    right shift -> chunk-major update [k+1, B, L, M] u32."""
     m, lu, ks1 = plan.m, plan.limbs_used, plan.glwe_size
     outs = []
     for kj in range(ks1):
@@ -434,151 +412,14 @@ def _recombine_nuss_u64(plan: NussPlan, s):
     return (c >> jnp.uint64(plan.shift)).astype(jnp.uint32)  # chunk-major
 
 
-@functools.lru_cache(maxsize=None)
-def _recombine_inv_pallas(ks1: int, two_l: int, m: int, b: int, lu: int,
-                          l: int, shift: int,
-                          interpret: bool = False, tile: int | None = None):
-    """Fused limb-recombine + inverse 2L-point polynomial transform + fold
-    + deferred /2L as ONE VPU kernel: s [2L, B, (k+1)*lu*M] i32 -> update
-    [k+1, B, L*M] u32 (chunk-major, flattened).
-
-    Why a kernel: the XLA form materializes every one of the log2(2L)
-    butterfly stages through HBM (~6 stage tensors of u64 round-tripped —
-    ablated at 233 ms of a 438 ms/100-iter scan at N=8192/L=32/B=256);
-    here S streams through VMEM once per (batch-tile, kj) and the whole
-    pair transform runs register/VMEM-resident. Arithmetic is the exact
-    u32-pair form of `_recombine_nuss`/`_inverse_fold_pairs` — bit-
-    identical (tests/test_nussbaumer.py, interpreter + TPU)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if tile is None:
-        tile = _recombine_tile(b, two_l, ks1, lu, m)
-    n_tiles = b // tile
-    root = m // l                   # omega = Z^(M/L)
-    stages = two_l.bit_length() - 1
-
-    def kernel(s_ref, o_ref):
-        # full-width blocks with the kj loop INSIDE: Mosaic requires the
-        # lane-axis block dim to divide by 128 or equal the array's, and
-        # a per-kj column block (lu*m wide) violates that at small M
-        for kj in range(ks1):
-            base = kj * lu * m
-            # limb recombination -> (lo, hi) u32 pairs, [2L, T, M]
-            lo = jnp.zeros((two_l, tile, m), jnp.uint32)
-            hi = jnp.zeros_like(lo)
-            for j in range(lu):
-                t = 8 * j
-                sm = s_ref[:, :, base + j * m:base + (j + 1) * m]   # i32
-                smu = jax.lax.bitcast_convert_type(sm, jnp.uint32)
-                if t < 32:
-                    c_lo = smu << jnp.uint32(t)
-                    sh = 31 if t == 0 else 32 - t               # arith shift
-                    c_hi = jax.lax.bitcast_convert_type(
-                        sm >> jnp.int32(sh), jnp.uint32)
-                    lo, hi = _pair_add(lo, hi, c_lo, c_hi)
-                else:
-                    hi = hi + (smu << jnp.uint32(t - 32))
-            # inverse 2L-point polynomial transform (z on the LEADING axis)
-            for st in reversed(range(stages)):
-                half = two_l >> (st + 1)
-                shp = (1 << st, 2, half, tile, m)
-                lr, hr = lo.reshape(shp), hi.reshape(shp)
-                ul, uh = lr[:, 0], hr[:, 0]
-                vl_in, vh_in = lr[:, 1], hr[:, 1]
-                vs = [_pair_negroll(vl_in[:, j], vh_in[:, j],
-                                    -root * j * (1 << st))
-                      for j in range(half)]
-                vl = jnp.stack([v[0] for v in vs], axis=1)
-                vh = jnp.stack([v[1] for v in vs], axis=1)
-                al, ah = _pair_add(ul, uh, vl, vh)
-                bl_, bh = _pair_sub(ul, uh, vl, vh)
-                lo = jnp.concatenate([al, bl_], axis=1).reshape(
-                    two_l, tile, m)
-                hi = jnp.concatenate([ah, bh], axis=1).reshape(
-                    two_l, tile, m)
-            # fold mod (Y^L - Z) + deferred /2L
-            zl, zh = _pair_negroll(lo[l:], hi[l:], 1)
-            lo, hi = _pair_add(lo[:l], hi[:l], zl, zh)         # [L, T, M]
-            res = (lo >> jnp.uint32(shift)) | (hi << jnp.uint32(32 - shift))
-            # keep [T, L, M] 4D — merging L into the lane axis is a
-            # minor-dim relayout Mosaic miscompiles at M < 128
-            o_ref[kj] = jnp.swapaxes(res, 0, 1)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((two_l, tile, ks1 * lu * m), lambda t: (0, t, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ks1, tile, l, m), lambda t: (0, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((ks1, b, l, m), jnp.uint32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
-
-
-def _recombine_nuss_kernel(plan: NussPlan, s, interpret: bool = False):
-    """_recombine_nuss via the fused Pallas kernel (u32 torus)."""
-    b = s.shape[1]
-    with jax.enable_x64(False):
-        kern = _recombine_inv_pallas(
-            plan.glwe_size, plan.two_l, plan.m, b, plan.limbs_used,
-            plan.l, plan.shift, interpret=interpret)
-        return kern(s)
-
-
 def _recombine_nuss(plan: NussPlan, s):
-    """Dot output s [2L, B, (k+1)*limbs*M] i32 -> accumulator update
-    [k+1, B, N] u32: per-frequency limb recombination into u32 word pairs
-    (exact mod 2^w_prime <= 2^(8*limbs_used)), inverse polynomial transform
-    over z on the pairs, fold mod (Y^L - Z), deferred division by 2L as a
-    right shift. On TPU the whole stage runs as one fused Pallas kernel
-    (`_recombine_inv_pallas`); the XLA forms remain selectable via
-    CONCRETE_TPU_NUSS_INV=u64|pair."""
-    import os
-
+    """Dot output s [2L, B, (k+1)*limbs*M] i32 -> chunk-major accumulator
+    update [k+1, B, L, M]: per-frequency limb recombination (exact mod
+    2^w_prime), inverse polynomial transform over z, fold mod (Y^L - Z),
+    deferred division by 2L as a right shift."""
     if plan.bits == 64:
         return _recombine_nuss_torus64(plan, s)
-    mode = os.environ.get("CONCRETE_TPU_NUSS_INV", "auto")
-    # 2L <= 64 is the compile-validated kernel envelope: the butterflies
-    # unroll half-per-stage negrolls, and the 2L=256 instance (N=16384,
-    # L=128) ran the remote Mosaic compiler past 25 minutes. Larger
-    # transforms keep the XLA form.
-    if mode == "auto" and bsx._on_tpu() and plan.two_l <= KERNEL_TWO_L_MAX:
-        return _recombine_nuss_kernel(plan, s)
-    if mode != "pair":
-        return _recombine_nuss_u64(plan, s)
-    m, lu, ks1 = plan.m, plan.limbs_used, plan.glwe_size
-    los, his = [], []
-    for kj in range(ks1):
-        base = kj * lu * m
-        lo = jnp.zeros(s.shape[:-1] + (m,), jnp.uint32)
-        hi = jnp.zeros_like(lo)
-        for j in range(lu):
-            t = 8 * j
-            sm = s[..., base + j * m: base + (j + 1) * m]      # i32
-            smu = jax.lax.bitcast_convert_type(sm, jnp.uint32)
-            if t < 32:
-                c_lo = smu << jnp.uint32(t)
-                sh = 31 if t == 0 else 32 - t                  # arith shift
-                c_hi = jax.lax.bitcast_convert_type(
-                    sm >> jnp.int32(sh), jnp.uint32)
-                lo, hi = _pair_add(lo, hi, c_lo, c_hi)
-            else:
-                hi = hi + (smu << jnp.uint32(t - 32))
-        los.append(lo)
-        his.append(hi)
-    # [k+1, B, 2L, M] pairs
-    lo = jnp.moveaxis(jnp.stack(los, axis=0), 2, 1)
-    hi = jnp.moveaxis(jnp.stack(his, axis=0), 2, 1)
-    lo, hi = _inverse_fold_pairs(plan, lo, hi)
-    # divide by 2L (the transforms are unnormalized): low 32 result bits
-    sh = jnp.uint32(plan.shift)
-    return (lo >> sh) | (hi << jnp.uint32(32 - plan.shift))  # chunk-major
+    return _recombine_nuss_u64(plan, s)
 
 
 def _inverse_fold_pairs(plan: NussPlan, lo, hi):
@@ -610,163 +451,12 @@ def _inverse_fold_pairs(plan: NussPlan, lo, hi):
     return _pair_add(lo[..., :plan.l, :], hi[..., :plan.l, :], zl, zh)
 
 
-# --- 3-word (96-bit) lane arithmetic for the u64-torus recombine kernel --
-# Mosaic rejects i64 lanes, so the u64-torus values (exact mod
-# 2^(64+shift) <= 2^72) ride explicit (w0, w1, w2) u32 word triples.
-
-
-def _w3_add(a, b):
-    r0 = a[0] + b[0]
-    c1 = (r0 < a[0]).astype(jnp.uint32)
-    r1t = a[1] + b[1]
-    c2a = (r1t < a[1]).astype(jnp.uint32)
-    r1 = r1t + c1
-    c2b = (r1 < r1t).astype(jnp.uint32)
-    return r0, r1, a[2] + b[2] + c2a + c2b
-
-
-def _w3_sub(a, b):
-    r0 = a[0] - b[0]
-    br1 = (a[0] < b[0]).astype(jnp.uint32)
-    r1t = a[1] - b[1]
-    br2a = (a[1] < b[1]).astype(jnp.uint32)
-    r1 = r1t - br1
-    br2b = (r1t < br1).astype(jnp.uint32)
-    return r0, r1, a[2] - b[2] - br2a - br2b
-
-
-def _w3_neg(a):
-    z = tuple(jnp.zeros_like(w) for w in a)
-    return _w3_sub(z, a)
-
-
-def _w3_negroll(a, shift: int):
-    """a * Z^shift in R_M on (w0, w1, w2) triples, static shift."""
-    m = a[0].shape[-1]
-    shift %= 2 * m
-    neg = shift >= m
-    shift %= m
-    if shift:
-        nh = _w3_neg(tuple(w[..., m - shift:] for w in a))
-        a = tuple(jnp.concatenate([nh[i], w[..., : m - shift]], axis=-1)
-                  for i, w in enumerate(a))
-    return _w3_neg(a) if neg else a
-
-
-@functools.lru_cache(maxsize=None)
-def _recombine_inv_pallas64(ks1: int, two_l: int, m: int, b: int, lu: int,
-                            l: int, shift: int,
-                            interpret: bool = False,
-                            tile: int | None = None):
-    """u64-TORUS twin of `_recombine_inv_pallas`: limb recombination into
-    96-bit word triples (exact mod 2^(64+shift)), inverse transform + fold
-    on triples, deferred /2L — one VPU kernel emitting the result as TWO
-    u32 word planes [2, k+1, B, L, M] (plane 0 = low u64 word; Mosaic has
-    no 64-bit lanes, the caller bitcasts the plane pair back to u64)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if tile is None:
-        tile = _recombine_tile(b, two_l, ks1, lu, m)
-    n_tiles = b // tile
-    root = m // l
-    stages = two_l.bit_length() - 1
-
-    def kernel(s_ref, o_ref):
-        for kj in range(ks1):
-            base = kj * lu * m
-            # limb recombination: sum_j sext96(s_j) << 8j on word triples
-            acc = tuple(jnp.zeros((two_l, tile, m), jnp.uint32)
-                        for _ in range(3))
-            for j in range(lu):
-                t = 8 * j
-                d, r = divmod(t, 32)
-                sm = s_ref[:, :, base + j * m:base + (j + 1) * m]   # i32
-                su = jax.lax.bitcast_convert_type(sm, jnp.uint32)
-                eu = jax.lax.bitcast_convert_type(
-                    sm >> jnp.int32(31), jnp.uint32)     # sign word
-                x = (su, eu, eu)
-                y = []
-                for k in range(3):
-                    lo_i = k - d
-                    w = None
-                    if 0 <= lo_i:
-                        w = x[lo_i] << jnp.uint32(r) if r else x[lo_i]
-                    if r and 0 <= lo_i - 1:
-                        spill = x[lo_i - 1] >> jnp.uint32(32 - r)
-                        w = spill if w is None else (w | spill)
-                    y.append(w if w is not None
-                             else jnp.zeros_like(su))
-                acc = _w3_add(acc, tuple(y))
-            # inverse 2L-point polynomial transform on triples
-            for st in reversed(range(stages)):
-                half = two_l >> (st + 1)
-                shp = (1 << st, 2, half, tile, m)
-                wr = tuple(w.reshape(shp) for w in acc)
-                u = tuple(w[:, 0] for w in wr)
-                v_in = tuple(w[:, 1] for w in wr)
-                vs = [_w3_negroll(tuple(w[:, j] for w in v_in),
-                                  -root * j * (1 << st))
-                      for j in range(half)]
-                v = tuple(jnp.stack([vv[i] for vv in vs], axis=1)
-                          for i in range(3))
-                a3 = _w3_add(u, v)
-                b3 = _w3_sub(u, v)
-                acc = tuple(
-                    jnp.concatenate([a3[i], b3[i]], axis=1).reshape(
-                        two_l, tile, m)
-                    for i in range(3))
-            # fold mod (Y^L - Z) + deferred /2L
-            zt = _w3_negroll(tuple(w[l:] for w in acc), 1)
-            lo3 = _w3_add(tuple(w[:l] for w in acc), zt)    # [L, T, M] x3
-            sh, ish = jnp.uint32(shift), jnp.uint32(32 - shift)
-            out_lo = (lo3[0] >> sh) | (lo3[1] << ish)
-            out_hi = (lo3[1] >> sh) | (lo3[2] << ish)
-            o_ref[0, kj] = jnp.swapaxes(out_lo, 0, 1)
-            o_ref[1, kj] = jnp.swapaxes(out_hi, 0, 1)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((two_l, tile, ks1 * lu * m), lambda t: (0, t, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((2, ks1, tile, l, m),
-                               lambda t: (0, 0, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((2, ks1, b, l, m), jnp.uint32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
-
-
-def _recombine_nuss_torus64_kernel(plan: NussPlan, s,
-                                   interpret: bool = False):
-    """_recombine_nuss_torus64 via the fused 3-word Pallas kernel."""
-    b = s.shape[1]
-    with jax.enable_x64(False):
-        kern = _recombine_inv_pallas64(
-            plan.glwe_size, plan.two_l, plan.m, b, plan.limbs_used,
-            plan.l, plan.shift, interpret=interpret)
-        planes = kern(s)
-    pairs = jnp.moveaxis(planes, 0, -1)           # [k+1, B, L, M, 2]
-    return jax.lax.bitcast_convert_type(pairs, jnp.uint64)
-
-
 def _recombine_nuss_torus64(plan: NussPlan, s):
     """u64-TORUS recombine: dot output s [2L, B, (k+1)*limbs*M] i32 ->
     chunk-major update [k+1, B, L, M] u64. The per-frequency values are
-    exact mod 2^w_prime = 2^(64 + shift) and ride (lo, hi) u64 pairs
-    (v5e emulates u64 lanes, but the pair form only materializes the few
-    hi bits that matter); inverse transform + fold on the pairs, then the
-    deferred /2L shift recombines the pair into the u64 result."""
-    import os
-
-    if (os.environ.get("CONCRETE_TPU_NUSS_INV", "auto") == "auto"
-            and bsx._on_tpu() and plan.two_l <= KERNEL_TWO_L_MAX):
-        return _recombine_nuss_torus64_kernel(plan, s)
+    exact mod 2^w_prime = 2^(64 + shift) and ride (lo, hi) u64 pairs;
+    inverse transform + fold on the pairs, then the deferred /2L shift
+    recombines the pair into the u64 result."""
     m, lu, ks1 = plan.m, plan.limbs_used, plan.glwe_size
     los, his = [], []
     for kj in range(ks1):
@@ -818,7 +508,7 @@ def _extprod_nuss_cm(plan: NussPlan, rings, diff_cm):
 
 
 def _dot_recombine_nuss(plan: NussPlan, rings, d8):
-    """Per-frequency table build + batched MXU dot + recombine: the tail of
+    """Per-frequency table build + batched int8 dot + recombine: the tail of
     one Nussbaumer CMux given the transformed digit matrix d8."""
     rhs = bsx.build_tables(
         rings, plan.m, plan.n_words, 0, plan.limb_hi_drop)
@@ -829,145 +519,10 @@ def _dot_recombine_nuss(plan: NussPlan, rings, d8):
     return _recombine_nuss(plan, s)
 
 
-@functools.lru_cache(maxsize=None)
-def _rotdig_fwd_nuss_pallas(ks1: int, l: int, m: int, b: int, base_log: int,
-                            level: int, n_sub: int,
-                            interpret: bool = False, tile: int | None = None):
-    """One Nussbaumer CMux step's front half as ONE VPU kernel: chunk-major
-    barrel rotation by a_hat, wrapping diff, gadget decomposition, forward
-    2L-point polynomial transform of the digits, balanced sub-digit split
-    -> d8 [B, 2L, R'*M] i8 (z bit-reversed, per-z column order
-    (lev, sub, ki) — exactly `monomial_mul_chunked` + `_digit_matrix_nuss`).
-
-    Why: the XLA composition runs log2(2N) select stages plus log2(2L)
-    transform stages through HBM-level fusions — ablated at 118 + 102 ms
-    of a 438 ms/100-iter scan at N=8192/L=32/B=256; here the whole front
-    half is VMEM-resident (read acc once, write d8 once). Transform math
-    runs in i32 lanes: with the plan's bl_eff <= 14 precondition the grown
-    digits never exceed i16 range, so i32 equals the XLA path's i16 values
-    exactly. Bit-identical (tests/test_nussbaumer.py)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    two_l = 2 * l
-    n = l * m
-    r_blocks = level * ks1 * n_sub
-    root = m // l
-    stages = two_l.bit_length() - 1
-    if tile is None:
-        # dominant live values: per-level dz [T, 2L, M] i32 + the output
-        # block [T, 2L, R'M] i8 + acc block [ks1, T, L, M] u32
-        per_row = (two_l * m * 4) + (two_l * r_blocks * m) + (ks1 * n * 4)
-        budget = max(8, (24 << 20) // per_row)
-        tile = min(b, 1 << (budget.bit_length() - 1))
-        while b % tile:
-            tile //= 2
-    n_tiles = b // tile
-
-    def kernel(acc_ref, ah_ref, o_ref):
-        ah = ah_ref[:, :1]                                   # [T, 1] i32
-        bit_sel = ah[:, :, None]                             # [T, 1, 1]
-        for ki in range(ks1):
-            x = acc_ref[ki]                                  # [T, L, M] u32
-            # chunk-major negacyclic barrel rotation (monomial_mul_chunked)
-            rot = x
-            for bit in range((2 * n - 1).bit_length()):
-                s = (1 << bit) % (2 * n)
-                q, r = divmod(s, l)
-                if r == 0:
-                    rolled = nb._neg_roll_static(rot, q)
-                else:
-                    hi = nb._neg_roll_static(rot[:, l - r:], q + 1)
-                    lo = nb._neg_roll_static(rot[:, :l - r], q)
-                    rolled = jnp.concatenate([hi, lo], axis=1)
-                take = (bit_sel >> bit) & 1
-                rot = jnp.where(take == 1, rolled, rot)
-            diff = rot - x
-            # gadget decomposition (decompose_rounded's unrolled form)
-            non_rep = 32 - base_log * level
-            if non_rep:
-                msb = (diff >> np.uint32(non_rep - 1)) & np.uint32(1)
-                diff = ((diff >> np.uint32(non_rep)) + msb) << np.uint32(
-                    non_rep)
-            state = diff >> np.uint32(32 - base_log * level)
-            mask = np.uint32((1 << base_log) - 1)
-            half_bits = np.uint32(base_log - 1)
-            digits = [None] * level
-            for step in range(level):
-                res = state & mask
-                state = state >> np.uint32(base_log)
-                carry = ((res - np.uint32(1)) | state) & res
-                carry = carry >> half_bits
-                state = state + carry
-                dig = res - (carry << np.uint32(base_log))
-                digits[level - 1 - step] = jax.lax.bitcast_convert_type(
-                    dig, jnp.int32)
-            # per level: zero-pad chunks to 2L, forward transform (DIF,
-            # bit-reversed output — nb.forward on the chunk axis), split
-            for lev in range(level):
-                d = digits[lev]                              # [T, L, M] i32
-                dz = jnp.concatenate([d, jnp.zeros_like(d)], axis=1)
-                for st in range(stages):
-                    half = two_l >> (st + 1)
-                    xr = dz.reshape(tile, 1 << st, 2 * half, m)
-                    a = xr[:, :, :half]
-                    bq = xr[:, :, half:]
-                    lo_s = a + bq
-                    dff = a - bq
-                    hi_s = jnp.concatenate(
-                        [nb._neg_roll_static(
-                            dff[:, :, j:j + 1], root * j * (1 << st))
-                         for j in range(half)], axis=2)
-                    dz = jnp.stack([lo_s, hi_s], axis=2).reshape(
-                        tile, two_l, m)
-                for sub, dsub in enumerate(
-                        bsx._split_subdigits(dz, n_sub)):
-                    c0 = ((lev * n_sub + sub) * ks1 + ki) * m
-                    o_ref[:, :, c0:c0 + m] = dsub.astype(jnp.int8)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((ks1, tile, l, m), lambda t: (0, t, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda t: (t, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, two_l, r_blocks * m),
-                               lambda t: (t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, two_l, r_blocks * m), jnp.int8),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
-
-
-def _rotdig_nuss(plan: NussPlan, acc_cm, a_hat, interpret: bool = False):
+def _rotdig_nuss(plan: NussPlan, acc_cm, a_hat):
     """d8 of one Nussbaumer CMux step from the chunk-major accumulator:
-    fused Pallas kernel on TPU (u32, bl_eff <= 14), XLA composition
-    elsewhere. Both bit-identical."""
-    import os
-
-    bl_eff = plan.base_log + (plan.l.bit_length() - 1)
-    # MEASURED-NEUTRAL on v5e (round 5, A/B at N=8192 B=256/1024: 297/297
-    # and 978/976 ms — identical to the XLA composition), so it stays
-    # opt-in: the XLA fusions already run this stage at par, and the
-    # kernel only adds first-compile time. Re-evaluate if XLA's fusion
-    # behavior regresses at new shapes.
-    flag = os.environ.get("CONCRETE_TPU_NUSS_ROTDIG", "0") == "1"
-    use_kernel = (
-        (interpret or (bsx._on_tpu() and flag))
-        and plan.bits == 32 and bl_eff <= 14
-        and plan.two_l <= KERNEL_TWO_L_MAX)  # compile envelope
-    if use_kernel:
-        b = acc_cm.shape[1]
-        with jax.enable_x64(False):
-            kern = _rotdig_fwd_nuss_pallas(
-                plan.glwe_size, plan.l, plan.m, b, plan.base_log,
-                plan.level, plan.n_sub, interpret=interpret)
-            return kern(acc_cm, a_hat.astype(jnp.int32)[:, None])
+    chunked negacyclic rotation by a_hat, wrapping diff, transformed digit
+    matrix."""
     rot = nb.monomial_mul_chunked(acc_cm, a_hat[None, :], plan.l)
     return _digit_matrix_nuss(plan, rot - acc_cm)
 
@@ -1033,10 +588,7 @@ def bootstrap_keyswitch_nuss(cfg: ServerConfig, bsk_rings, ksk, lut, lwe, *,
                              l: int | None = None):
     """PBS + keyswitch: the per-gate pipeline (server_key/mod.rs:133-166)."""
     big = bootstrap_nuss(cfg, bsk_rings, lut, lwe, l=l)
-    if ksk.dtype == jnp.int8:
-        return lwe_ops.keyswitch_limbs(
-            ksk, big, base_log=cfg.ks_base_log, level_count=cfg.ks_level)
-    return lwe_ops.keyswitch(
+    return lwe_ops.keyswitch_any(
         ksk, big, base_log=cfg.ks_base_log, level_count=cfg.ks_level)
 
 

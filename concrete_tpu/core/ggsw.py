@@ -12,7 +12,7 @@ rayon fan-out (standard/mod.rs:254) with data parallelism.
 The reference converts the BSK to the complex Fourier domain
 (bootstrap/fourier/mod.rs:33,186); we convert to the exact NTT domain instead:
 per CRT prime, Montgomery-form spectra [P, n, l, k+1, k+1, N] uint32 —
-resident in HBM, streamed through VMEM during blind rotation.
+resident in device memory, one slice per step of the blind rotation.
 
 Example:
     >>> from concrete_tpu.core.ggsw import encrypt_constant_ggsw
@@ -151,7 +151,7 @@ class StandardBootstrapKey:
         children (one contiguous mask read + one AES sweep over every noise
         child, csprng.random.batch_fill_gaussian_torus) and overlaps the
         device-side mask*key multisum with the host-side noise draw — the
-        TPU answer to the reference's rayon par_fill_with_new_key
+        batched answer to the reference's rayon par_fill_with_new_key
         (standard/mod.rs:254). ``batched=False`` keeps the per-bit
         sequential draw; both produce identical bits (tests/test_csprng.py,
         golden digests in tests/test_golden.py).

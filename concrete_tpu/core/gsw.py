@@ -3,7 +3,7 @@
 Reference: crypto/gsw/ciphertext.rs (+ secret/lwe.rs:494 encrypt_constant_gsw).
 A GSW ciphertext is [l, n+1, n+1]: `level` matrices of n+1 LWE rows; the
 gadget summand m * q/B^level sits on the diagonal. The external product
-contracts the decomposed input LWE against the rows — on TPU a single integer
+contracts the decomposed input LWE against the rows — a single integer
 matmul per batch. Research/private component in the reference (no engine
 exposes it, specification/entities/mod.rs:46-47); exposed here for parity.
 

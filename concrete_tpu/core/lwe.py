@@ -265,8 +265,8 @@ def keyswitch(ksk_data, ct, *, base_log: int, level_count: int):
     ksk[i, level] rows. The contraction over (n_in, l) runs as a single
     integer matmul (wrapping two's-complement accumulation == mod q).
 
-    For the u64 torus the contraction runs on byte limb planes (the TPU has
-    no 64-bit dot): see ksk_to_limbs / keyswitch_limbs — bit-identical.
+    The same contraction also runs on int8 byte limb planes: see
+    ksk_to_limbs / keyswitch_limbs — bit-identical.
     """
     from . import checks
 
@@ -312,9 +312,9 @@ def ksk_to_limbs(ksk_data) -> np.ndarray:
 
 
 def keyswitch_limbs(ksk8, ct, *, base_log: int, level_count: int):
-    """Keyswitch against a limb-prepared key (ksk_to_limbs) — the TPU path
-    for the u64 torus (int8 MXU dot + wrapping recombination, exact mod 2^q;
-    bit-identical to `keyswitch`). Digits must fit int8 (base_log <= 7)."""
+    """Keyswitch against a limb-prepared key (ksk_to_limbs): one int8 dot
+    + wrapping recombination, exact mod 2^q and bit-identical to
+    `keyswitch`. Digits must fit int8 (base_log <= 7)."""
     assert base_log <= 7, "limb keyswitch needs int8 digits (base_log <= 7)"
     # int8 x int8 -> int32 dot: worst-case |sum| = K * 64 * 128 must stay exact
     assert ksk8.shape[0] * 8192 < 2 ** 31, (
@@ -337,3 +337,12 @@ def keyswitch_limbs(ksk8, ct, *, base_log: int, level_count: int):
                      << acc_t(8 * m))                    # wrapping mod 2^q
     out = jax.lax.bitcast_convert_type(out, ct.dtype)
     return out.at[..., -1].add(body)
+
+
+def keyswitch_any(ksk, ct, *, base_log: int, level_count: int):
+    """`keyswitch_limbs` for an int8 limb-prepared key (ksk_to_limbs),
+    `keyswitch` for the plain u32/u64 key tensor."""
+    if ksk.dtype == jnp.int8:
+        return keyswitch_limbs(ksk, ct, base_log=base_log,
+                               level_count=level_count)
+    return keyswitch(ksk, ct, base_log=base_log, level_count=level_count)

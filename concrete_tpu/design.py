@@ -1,30 +1,30 @@
-"""TPU-first parameter co-design: derive operating points from the hardware.
+"""Parameter co-design: derive operating points from the hardware.
 
 The reference ships parameter sets chosen for a CPU f64-FFT backend
 (concrete-boolean/src/parameters/mod.rs:82-110): `TFHE_LIB_PARAMETERS`
 spends a 2^-165 error budget (error.md:23) where the reference's own
 shipped `DEFAULT_PARAMETERS` grade is 2^-25 (error.md:22), and
-`DEFAULT_PARAMETERS` picks pbs_base_log=8, which on the int8 MXU path
-forces a 2-way digit sub-split (bootstrap_mxu.MxuPlan: digits wider than
-7 bits don't fit a signed byte) — doubling the contraction depth for no
-noise benefit over base_log=7 at equal l*base_log coverage.
+`DEFAULT_PARAMETERS` picks pbs_base_log=8, which on the int8 toeplitz
+path forces a 2-way digit sub-split (bootstrap_mxu.MxuPlan: digits wider
+than 7 bits don't fit a signed byte) — doubling the contraction depth for
+no noise benefit over base_log=7 at equal l*base_log coverage.
 
-This module re-derives the operating point for the TPU backend:
+This module re-derives the operating point for the int8 toeplitz backend:
 
 - **security** is pinned to the reference's own 128-bit calibration curve
   (concrete/src/lwe_params.rs:23-90 dimension -> log2 sigma pairs,
   mirrored in highlevel/params_presets.py), log-linearly interpolated in
   the total key dimension;
-- **noise** comes from the hardware-validated NPE (`npe.py`; measured vs
-  predicted to ~0.1 bits on chip, docs/performance.md) with a chained
+- **noise** comes from the NPE (`npe.py`; measured against real
+  decryptions, docs/performance.md) with a chained
   worst-case gate model strictly harder than the reference's: the
   decision input is an AND/OR of two MUX outputs (a MUX carries two PBS
   noises, server_key/mod.rs:197-279), evaluated at the tightest margin
   (1/8 to the sign boundary);
-- **cost** comes from the measured v5e stage model (docs/performance.md
-  "where the time goes"): MXU dot at the measured TOPS, toeplitz table
-  build and limb recombine at their HBM floors times their measured
-  slack, rotation+digits at the measured VPU rate.
+- **cost** comes from a stage model of one CMux step computed from shapes
+  at a device's published peaks (`CostModel`; data sheet, not measured):
+  the int8 dot at the int8 rate, the table build, rotation+digits and
+  limb recombine at their memory floors.
 
 The result of `search()` (run: `python benchmarks/param_design.py`) is the
 `TPU128_PARAMETERS` preset in params.py.
@@ -195,8 +195,8 @@ def recommend_rlwe(nb_bit_precision: int, lwe_dimension: int = 630,
 
     At fixed total GLWE dimension k*N the external-product MACs scale as
     l*(k+1)^2*N^2, so the smallest feasible N with the largest k wins —
-    measured 2.5x PBS throughput going (N=1024, k=1) -> (N=256, k=4) at
-    LOWER output noise (docs/performance.md "u64 torus"). Feasibility is
+    (N=1024, k=1) -> (N=256, k=4) cuts them 2.5x, at lower output noise
+    (docs/performance.md "u64 torus"). Feasibility is
     `max_bootstrap_precision`: LUT resolution, not output noise, is what
     small N trades away.
 
@@ -223,41 +223,38 @@ def recommend_rlwe(nb_bit_precision: int, lwe_dimension: int = 630,
 
 
 # ---------------------------------------------------------------------------
-# cost: measured v5e stage model
+# cost: stage model from shapes at published peaks
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuCostModel:
-    """Per-iteration stage costs, anchored on the measured TFHE_LIB-exact
-    profile (docs/performance.md "where the time goes": dot 523 us at 394
-    TOPS, build 104 us = 1.7x the 50 MB HBM write, rot+digits 132 us,
-    recombine 80 us ~= the S-matrix HBM round trip, at B=2048)."""
+class CostModel:
+    """Per-iteration stage costs of the toeplitz CMux step, from shapes at
+    the published peaks of `device_kind` (profiling.PEAKS — data sheet, not
+    measured): the s8 x s8 dot at the int8 rate; the table build (written
+    once, read once by the dot), rotation+digits (accumulator in, digit
+    matrix out) and limb recombine (dot output in, accumulator in and out)
+    at the memory rate. A lower bound that ranks shapes; measured times sit
+    above it."""
 
-    mxu_tops: float = 370e12       # conservative sustained int8 (measured 347-405)
-    hbm_gbps: float = 819e9
-    build_slack: float = 1.7       # measured table-build HBM inefficiency
-    rot_us_anchor: float = 40.0    # rotation share at (k+1)*N=2048, B=2048
-    dig_us_anchor: float = 92.0    # digit share at R*N=6144, B=2048
-    ks_overhead: float = 1.02      # keyswitch + sample extract + dispatch
+    device_kind: str = "NVIDIA H100 80GB HBM3"
 
     def gate_us(self, p: BooleanParameters, batch: int = 2048) -> float:
         """Modeled microseconds per batched gate call (batch gates)."""
+        from .profiling import peaks
+
+        pk = peaks(self.device_kind)
         k1 = p.glwe_dimension + 1
         n_sub = 1 if p.pbs_base_log <= 7 else (p.pbs_base_log - 8) // 7 + 2
-        r = p.pbs_level * k1 * n_sub
-        big_k = r * p.polynomial_size
+        big_k = p.pbs_level * k1 * n_sub * p.polynomial_size
         cols = k1 * 4 * p.polynomial_size
-        bscale = batch / 2048.0
-        dot = 2.0 * batch * big_k * cols / self.mxu_tops * 1e6
-        build = big_k * cols / self.hbm_gbps * self.build_slack * 1e6
-        rot = self.rot_us_anchor * (k1 * p.polynomial_size / 2048.0) * bscale
-        dig = self.dig_us_anchor * (big_k / 6144.0) * bscale
-        s_bytes = batch * cols * 4
         acc_bytes = batch * k1 * p.polynomial_size * 4
-        recomb = (s_bytes + 2 * acc_bytes) / self.hbm_gbps * 1e6
-        iter_us = dot + build + rot + dig + recomb
-        return p.lwe_dimension * iter_us * self.ks_overhead
+        dot = 2.0 * batch * big_k * cols / pk["int8_ops_per_s"]
+        moved = (2 * big_k * cols                      # table build
+                 + acc_bytes + batch * big_k           # rotation + digits
+                 + batch * cols * 4 + 2 * acc_bytes)   # recombine
+        iter_s = dot + moved / pk["hbm_bytes_per_s"]
+        return p.lwe_dimension * iter_s * 1e6
 
     def gates_per_s(self, p: BooleanParameters, batch: int = 2048) -> float:
         return batch / self.gate_us(p, batch) * 1e6
@@ -296,14 +293,14 @@ def _ks_search(kn: int, sig_lwe: float, var_budget: float,
 
 
 def search(target_err_log2: float = -25.0, security: int = 128,
-           batch: int = 2048, cost: TpuCostModel | None = None,
+           batch: int = 2048, cost: CostModel | None = None,
            n_range=range(560, 721, 10),
            shapes=((1, 1024), (2, 512), (4, 256), (2, 1024), (1, 2048)),
            levels=range(1, 5), base_logs=range(3, 9)) -> list[Candidate]:
     """Sweep (n, k, N, bl, l, ks) and rank feasible points by modeled
     throughput. Feasible = chained worst-case gate error (AND of two MUX
     outputs) <= ``target_err_log2`` at the given security level."""
-    cost = cost or TpuCostModel()
+    cost = cost or CostModel()
     # the total pre-decision noise budget at the target error: sigma such
     # that erfc(margin/(sigma sqrt 2)) = 2^target; grant the keyswitch ~15%
     # of the variance (it enters doubled — two gate inputs)

@@ -7,7 +7,7 @@ arbitrary f64 -> f64 functions, and serialization. Torus is u64 here
 (concrete/src/lib.rs:22), giving 64-bit noise headroom.
 
 Batch-first redesign: `LWE` carries a ciphertext *batch* of any shape with a
-shared encoder (the common case on TPU); `VectorLWE` mirrors the reference's
+shared encoder (the common case); `VectorLWE` mirrors the reference's
 per-slot-encoder semantics.
 """
 

@@ -111,8 +111,9 @@ class RLWESecretKey:
 class LWEBSK:
     """Bootstrapping key (lwe_bsk.rs:20): GGSW of the input key bits under
     the RLWE key. The coefficient-domain form is canonical; evaluation forms
-    derive lazily per backend ("mxu" int8-toeplitz rings on TPU, exact-NTT
-    spectra elsewhere — bit-identical, see core/bootstrap_mxu.py)."""
+    derive lazily per backend ("mxu" int8-toeplitz rings, "nuss"
+    Nussbaumer-domain rings, "ntt" exact-NTT spectra — bit-identical;
+    "auto" resolves through core.backend.resolve)."""
 
     cfg: bs.ServerConfig
     variance: float
@@ -123,22 +124,11 @@ class LWEBSK:
     _bsk_nuss: object = dataclasses.field(default=None, repr=False)
 
     def resolved_backend(self) -> str:
-        from ..core import bootstrap_mxu as bsx
-        from ..core import bootstrap_nuss as bsn
+        from ..core import backend
 
         if self.backend != "auto":
             return self.backend
-        if not bsx._on_tpu():
-            return "ntt"
-        try:  # configs outside the mxu plan's envelope fall back to nuss
-            bsx.MxuPlan.from_config(self.cfg)
-        except NotImplementedError:
-            try:  # large N: Nussbaumer-domain MXU path (u32 AND u64 torus)
-                bsn.NussPlan.from_config(self.cfg)
-            except (NotImplementedError, ValueError):
-                return "ntt"
-            return "nuss"
-        return "mxu"
+        return backend.resolve(self.cfg)
 
     def with_fast_mode(self, *, limb_drop: int = 2,
                        levels: int | None = None) -> "LWEBSK":
@@ -330,8 +320,8 @@ class LWEBSK:
 class LWEKSK:
     """Keyswitching key (lwe_ksk.rs:14).
 
-    On TPU the u64 contraction runs on prepared int8 limb planes (the
-    backend has no 64-bit dot); bit-identical to the plain path."""
+    Off the CPU the u64 contraction runs on prepared int8 limb planes;
+    bit-identical to the plain path."""
 
     inner: LweKeyswitchKey
     variance: float
@@ -339,16 +329,15 @@ class LWEKSK:
 
     def run_keyswitch(self, cts):
         """Keyswitch a [..., n_in+1] batch on the best available path."""
+        import jax
         import jax.numpy as jnp
 
-        from ..core import bootstrap_mxu as bsx
+        from ..core import backend
         from ..core import lwe as lwe_ops
 
-        # keyswitch_limbs asserts its int32 accumulation bound; fall back to
-        # the plain contraction instead of crashing at trace time when a large
-        # n_in*level configuration would exceed it.
-        limbs_ok = self.inner.data.shape[0] * self.level * 8192 < 2 ** 31
-        if bsx._on_tpu() and self.base_log <= 7 and limbs_ok:
+        if backend.int8_keyswitch(
+                jax.default_backend() != "cpu", self.base_log,
+                self.inner.data.shape[0] * self.level):
             if self._limbs is None:
                 self._limbs = jnp.asarray(lwe_ops.ksk_to_limbs(self.inner.data))
             return lwe_ops.keyswitch_limbs(

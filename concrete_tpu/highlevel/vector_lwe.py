@@ -3,7 +3,7 @@
 Mirrors concrete/src/vector_lwe/mod.rs (2,548 LoC): the same operation set as
 LWE, batched over `nb_ciphertexts` slots each carrying its own Encoder and
 variance, plus vector-only operations (sum_with_padding, sum_with_new_min,
-per-slot bootstrap). On TPU the slot axis is just another batch axis:
+per-slot bootstrap). The slot axis is just another batch axis:
 ciphertext arithmetic is one vectorized array op; only the (cheap, float)
 encoder bookkeeping iterates per slot.
 
@@ -517,7 +517,7 @@ class VectorLWE:
         return VectorLWE.from_lwes([out])
 
     def bootstrap_all_with_function(self, bsk: LWEBSK, f, encoder_output: Encoder) -> "VectorLWE":
-        """TPU-native extension: bootstrap ALL slots in one batched PBS.
+        """Batched extension: bootstrap ALL slots in one PBS.
 
         Requires identical input encoders across slots (the common case);
         the whole vector rides one CMux chain as a batch.

@@ -1,3 +1,3 @@
 """Exact integer math for the discretized torus: modular arithmetic,
 negacyclic NTT over NTT-friendly primes, CRT reconstruction, and signed
-gadget decomposition. All device code is u32-first (TPU has no native u64)."""
+gadget decomposition. The NTT runs in u32 Montgomery lanes."""

@@ -130,8 +130,7 @@ class CrtContext:
 
         residues: list of P uint32 arrays (plain, NOT Montgomery) -> torus
         uint32/uint64 array. The Garner digit recurrences run entirely in
-        u32 Montgomery lanes (a u64 `%`-based version measured 4.2 ms per
-        blind-rotate step on TPU); only the final digit-weighted sum widens
+        u32 Montgomery lanes; only the final digit-weighted sum widens
         to u64 when bits == 64.
         """
         from .mod_arith import MontgomeryContext

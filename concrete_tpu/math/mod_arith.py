@@ -1,8 +1,8 @@
-"""u32 modular arithmetic for NTT-friendly primes, TPU-first.
+"""u32 modular arithmetic for NTT-friendly primes.
 
-The TPU vector unit multiplies 32-bit lanes (low 32 bits); there is no native
-64-bit path. We therefore build a 32x32->64 multiply from 16-bit halves and
-Montgomery reduction on top of it, so the entire NTT runs in uint32 lanes.
+A 32x32->64 multiply is built from 16-bit halves (`mul32_hilo`) and
+Montgomery reduction sits on top of it, so the entire NTT runs in uint32
+lanes.
 This replaces the reference's FFTW f64 path (concrete-core .../math/fft/) with
 *exact* arithmetic.
 

@@ -145,8 +145,7 @@ class StackedNttPlans(_StackedMontOps):
 @dataclasses.dataclass(frozen=True)
 class RollNttPlans(_StackedMontOps):
     """Roll-based stacked plans: butterflies via circular shifts + selects on
-    a FIXED [..., N] geometry (no reshapes -> no TPU relayouts; the same code
-    runs inside Pallas kernels). Per stage: full-length twiddle vectors with
+    a FIXED [..., N] geometry (no reshapes). Per stage: full-length twiddle vectors with
     entries at the second-half positions of each block, and a first-half mask.
     """
 
@@ -269,8 +268,7 @@ def forward_stacked_bl(sp: StackedNttPlans, x):
     """Batch-LAST stacked forward NTT: x [P, lead..., N, B] -> spectra.
 
     The butterfly reshapes split the N axis, which sits in the SUBLANE
-    position — leading-dimension reshapes and sublane slices are layout-free
-    on TPU, while the lane axis stays the wide batch B throughout.
+    position, while the minor axis stays the wide batch B throughout.
     """
     n = x.shape[-2]
     b = x.shape[-1]

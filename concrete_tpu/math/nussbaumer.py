@@ -20,11 +20,11 @@ multiplies. The inverse transform divides by 2L; over Z_{2^w} (w even) that
 division does not exist, so all arithmetic is carried mod 2^{w + log2(2L)}
 and the final result (known to be 2L * true) is right-shifted.
 
-Why this exists (TPU-first design, no reference analog): the MXU external
+Why this exists (no reference analog): the int8 toeplitz external
 product (core/bootstrap_mxu.py) is an O(N^2) toeplitz matmul whose RHS
 grows to gigabytes past N=4096. In the Nussbaumer domain the same product
 is 2L INDEPENDENT M-point toeplitz matmuls — O(N^2 / L) MACs and O(N^2/L)
-table bytes — putting N = 8192 and 16384 on the MXU fast path (the
+table bytes — putting N = 8192 and 16384 on the int8 matmul path (the
 reference supports N <= 16384, concrete-core fft/mod.rs:28). Exactness is
 preserved end to end: the composition is bit-identical to the direct
 toeplitz path (tests/test_nussbaumer.py).
@@ -87,7 +87,7 @@ def unchunk(c, l: int):
 
 def _neg_roll_static(x, shift: int):
     """x * Z^shift in R_M = Z[Z]/(Z^M+1), static shift (any sign), on the
-    last axis. Pure slice+concat (the Mosaic-safe form)."""
+    last axis. Pure slice+concat."""
     xp = _xp(x)
     m = x.shape[-1]
     shift = shift % (2 * m)

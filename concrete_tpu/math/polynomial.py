@@ -36,7 +36,7 @@ from . import crt, ntt
 
 def _negacyclic_static_roll(poly, shift: int):
     """poly * X^shift for a STATIC shift in [0, N): rotate right, wrapped
-    coefficients negated. Compiles to slices+concat (cheap on TPU)."""
+    coefficients negated. Compiles to slices+concat."""
     n = poly.shape[-1]
     shift = shift % (2 * n)
     neg = shift >= n
@@ -58,8 +58,7 @@ def negacyclic_monomial_mul(poly, degree):
     (interpreted mod 2N). Matches polynomial.rs:685-707.
 
     Implemented as a branchless barrel rotation — log2(2N) static rolls
-    gated by the degree bits. A take_along_axis gather measured ~7 ms per
-    blind-rotate step on TPU; the barrel form is pure shifts/selects.
+    gated by the degree bits: pure shifts/selects, no gather.
     """
     n = poly.shape[-1]
     degree = jnp.asarray(degree, dtype=jnp.int32) % (2 * n)

@@ -1,8 +1,8 @@
 """Native (C++) host-side components.
 
 The reference keeps its performance-critical host code native (FFTW C
-bindings, AES-NI intrinsics in concrete-csprng/src/aesni.rs). The TPU build's
-device compute is Pallas/XLA; the host-side analog here is a small C++
+bindings, AES-NI intrinsics in concrete-csprng/src/aesni.rs). Device
+compute here is XLA; the host-side analog is a small C++
 library for bulk AES-128-CTR generation (key/mask/noise material), built on
 demand with the system toolchain and loaded through ctypes. Everything it
 does is bit-identical to the pure-numpy fallback (csprng/aes.py), so the
@@ -30,7 +30,7 @@ def _lib_path() -> str:
     tag = f"cpython{sys.version_info.major}{sys.version_info.minor}"
     cache = os.environ.get(
         "CONCRETE_TPU_NATIVE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "concrete_tpu"),
+        os.path.join(os.path.dirname(__file__), "..", "..", ".native_build"),
     )
     os.makedirs(cache, exist_ok=True)
     return os.path.join(cache, f"ctpu_aes_{tag}.so")

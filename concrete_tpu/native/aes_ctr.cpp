@@ -1,6 +1,6 @@
 // Native AES-128-CTR bulk generation for the host-side CSPRNG.
 //
-// TPU-native analog of the reference's hardware backend
+// Native analog of the reference's hardware backend
 // (concrete-csprng/src/aesni.rs): batched AES-128 encryption of
 // little-endian counter blocks, used for key/mask/noise generation on the
 // host. Two code paths, selected at runtime:

@@ -1,12 +1,12 @@
 """Multi-chip scaling: batched PBS over a device mesh.
 
 The reference's only parallelism is rayon within one process (SURVEY.md §2);
-the TPU-native scaling story is SPMD over a mesh:
+this library scales as SPMD over a device mesh:
 - **dp** (the scaling unit): thousands of independent bootstraps sharded on
   the ciphertext batch axis; key material replicated;
 - **tp**: the external-product MAC sharded over the GGSW level axis and the
   keyswitch contraction sharded over the input-key axis, partial results
-  combined with psum over ICI.
+  combined with psum over the device interconnect.
 """
 
 from .mesh import (

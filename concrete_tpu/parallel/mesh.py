@@ -4,7 +4,8 @@ dp shards the ciphertext batch (embarrassingly parallel — no collectives,
 keys replicated per device). dp+tp additionally splits the per-CMux work:
 each tp shard holds a slice of the bootstrap key's decomposition levels and a
 slice of the keyswitch key's input dimension; partial NTT-domain accumulators
-and partial keyswitch sums are combined with psum over ICI.
+and partial keyswitch sums are combined with psum over the device
+interconnect.
 
 Residue psum: mod-p partial sums are carried in u64 (exact for any realistic
 tp degree) and reduced mod p after the collective.
@@ -28,7 +29,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..core import bootstrap as bs
 from ..core import bootstrap_mxu as bsx
@@ -60,12 +60,12 @@ def gate_pipeline_dp(cfg: bs.ServerConfig, mesh: Mesh, backend: str = "ntt"):
     def run(bsk, ksk, lut, lin):
         return bks(cfg, bsk, ksk, lut, lin)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         run,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(("dp", "tp"))),
         out_specs=P(("dp", "tp")),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)
 
@@ -182,7 +182,7 @@ def gate_pipeline_dp_tp(cfg: bs.ServerConfig, mesh: Mesh):
             ksk_shard, big, base_log=cfg.ks_base_log,
             level_count=cfg.ks_level)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         run,
         mesh=mesh,
         in_specs=(
@@ -192,7 +192,7 @@ def gate_pipeline_dp_tp(cfg: bs.ServerConfig, mesh: Mesh):
             P("dp"),                         # ciphertext batch
         ),
         out_specs=P("dp"),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)
 
@@ -254,7 +254,7 @@ def gate_pipeline_dp_tp_mxu(cfg: bs.ServerConfig, mesh: Mesh):
             ksk_shard, big, base_log=cfg.ks_base_log,
             level_count=cfg.ks_level)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         run,
         mesh=mesh,
         in_specs=(
@@ -264,7 +264,7 @@ def gate_pipeline_dp_tp_mxu(cfg: bs.ServerConfig, mesh: Mesh):
             P("dp"),                         # ciphertext batch
         ),
         out_specs=P("dp"),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(sharded)
 
@@ -337,7 +337,7 @@ def gate_pipeline_dp_tp_nuss(cfg: bs.ServerConfig, mesh: Mesh,
             ksk_shard, big, base_log=cfg.ks_base_log,
             level_count=cfg.ks_level)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         run,
         mesh=mesh,
         in_specs=(
@@ -347,7 +347,7 @@ def gate_pipeline_dp_tp_nuss(cfg: bs.ServerConfig, mesh: Mesh,
             P("dp"),                         # ciphertext batch
         ),
         out_specs=P("dp"),
-        check_rep=False,
+        check_vma=False,
     )
 
     def outer(rings, ksk, lut, lin):

@@ -1,18 +1,19 @@
-"""Multi-process (multi-host-shaped) execution of the sharded gate pipeline.
+"""Multi-process rehearsal of the sharded gate pipeline, on the CPU only.
 
-The reference has no distributed backend (SURVEY.md §2 tail: rayon only);
-the TPU design scales across hosts by REPLICATING the server keys once at
-setup (one broadcast/all-gather over DCN) and sharding the ciphertext batch
-(dp) across processes, with tensor parallelism (tp) inside or across hosts.
-This module is that design, executable TODAY on one machine: N processes x
-M virtual CPU devices each, `jax.distributed` + Gloo collectives standing in
-for DCN, the same `gate_pipeline_dp_tp_mxu` shard_map running unchanged over
-the GLOBAL mesh.
+The reference has no distributed backend (SURVEY.md §2 tail: rayon only).
+This module rehearses a multi-host layout on one machine: N processes x
+M virtual CPU devices each, `jax.distributed` + Gloo collectives, the same
+`gate_pipeline_dp_tp_mxu` shard_map running unchanged over the GLOBAL
+mesh, with the server keys replicated once at setup (one broadcast) and
+the ciphertext batch sharded (dp) across processes. It pins every worker
+to the CPU and is never pointed at the GPUs: on a GPU host the sharded
+pipelines run in ONE process that drives all local cards
+(`parallel.mesh`; `python chip_smoke.py --four-cards`).
 
 Two mesh orientations are rehearsed:
-- dp across processes (production shape: batch over DCN, tp over ICI);
-- tp across processes (the cross-host psum — every per-CMux partial sum
-  rides the process-to-process collective).
+- dp across processes (batch over the process collective, tp inside);
+- tp across processes (the cross-process psum — every per-CMux partial
+  sum rides the process-to-process collective).
 
 Run it via the driver hook::
 
@@ -88,7 +89,7 @@ def initialize_from_env():
 
 def replicate_from_host0(value):
     """The setup-time key replication: host 0's array is broadcast to every
-    process (the DCN all-gather of the design; BSK ~100 MB at real params —
+    process (the cross-host broadcast of the design; BSK ~100 MB at real params —
     a one-time cost). Non-zero processes pass a same-shaped placeholder."""
     from jax.experimental import multihost_utils
 
@@ -175,7 +176,7 @@ def _worker() -> None:
             want = ref[shard.index]
             got = np.asarray(shard.data)
             assert np.array_equal(got, want), f"{tag}: shard {shard.index}"
-        # and the fully-gathered result must round-trip the DCN collective
+        # and the fully-gathered result must round-trip the process collective
         full = np.asarray(multihost_utils.process_allgather(out, tiled=True))
         assert np.array_equal(full, ref), f"{tag}: allgather mismatch"
         print(f"  [proc {pid}] {tag}: bit-identical OK "
@@ -185,7 +186,7 @@ def _worker() -> None:
     check("dp-across-hosts tp=2",
           Mesh(np.array(devices).reshape(-1, 2), ("dp", "tp")))
     # 2) the hard one: tp ACROSS processes — every CMux psum crosses the
-    #    process boundary (DCN-collective rehearsal)
+    #    process boundary (cross-process collective rehearsal)
     check("tp-across-hosts tp=%d" % n_proc,
           Mesh(np.array(devices).reshape(n_proc, -1).T.copy(), ("dp", "tp")))
 
@@ -194,7 +195,7 @@ def _worker() -> None:
     # key-broadcast width (~70 MB server-key class) and psum widths. The
     # client key is deterministic from the shared seed, so every host
     # derives it locally (it is tiny); the SERVER keys are generated on
-    # proc 0 only and broadcast — the actual DCN setup cost of the design.
+    # proc 0 only and broadcast — the actual cross-host setup cost of the design.
     # Reference gate flow: concrete-boolean/src/server_key/mod.rs:55-166.
     if not os.environ.get("CONCRETE_TPU_MH_FAST"):
         from concrete_tpu import boolean as bool_api

@@ -168,18 +168,18 @@ TFHE_LIB_PARAMETERS = BooleanParameters(
 )
 
 
-# TPU-native parameter set: 128-bit security, chained worst-case gate error
-# probability <= 2^-32 (stricter accounting than the reference's 2^-25
-# DEFAULT grade — see design.gate_error_log2). Derived by the co-design
-# sweep in `concrete_tpu.design` (run: python benchmarks/param_design.py)
-# rather than inherited from the reference's CPU-FFT-era operating points:
+# Co-designed parameter set (the name is historical): 128-bit security,
+# chained worst-case gate error probability <= 2^-32 (stricter accounting
+# than the reference's 2^-25 DEFAULT grade — see design.gate_error_log2).
+# Derived by the co-design sweep in `concrete_tpu.design` (run:
+# python benchmarks/param_design.py) rather than inherited from the
+# reference's CPU-FFT-era operating points:
 #
 # - (k=4, N=256) keeps the 128-bit total GLWE dimension k*N=1024 but
-#   reshapes the MXU contraction: per blind-rotate step the dot is
+#   reshapes the int8 contraction: per blind-rotate step the dot is
 #   [B, l*(k+1)*N] x [l*(k+1)*N, (k+1)*4*N] — MACs scale as l*(k+1)^2*N^2,
 #   so at fixed k*N, larger k is strictly cheaper ((4+1)^2*256^2 = 0.41x of
-#   TFHE_LIB's (1+1)^2*1024^2). The MXU sustains ~376 TOPS at the resulting
-#   [2048,2560]x[2560,5120] shape (measured, v5e).
+#   TFHE_LIB's (1+1)^2*1024^2).
 # - pbs_base_log=7 is the widest gadget digit that fits a signed byte
 #   (bootstrap_mxu.MxuPlan): DEFAULT's base_log=8 forces a 2-way digit
 #   sub-split that doubles contraction depth for no noise benefit at equal
@@ -192,11 +192,8 @@ TFHE_LIB_PARAMETERS = BooleanParameters(
 #   a keyswitch within ~15% of the gate noise budget (design._ks_search);
 #   below it the security curve forces sigma_lwe too high.
 #
-# Measured on TPU v5e: 12,839 gate bootstraps/s/chip at batch 2048 (exact
-# integer arithmetic, no FFT rounding; RTT-amortized chained dispatch with
-# the fused rotation+digit kernel — docs/performance.md "Timing methodology
-# note"), vs 4,012/s for TFHE_LIB exact measured the same way.
-# Noise model validated on hardware: docs/performance.md "TPU128".
+# Throughput on the GPU: PERF.md. Noise model checked against real
+# decryptions: docs/performance.md "TPU128".
 TPU128_PARAMETERS = BooleanParameters(
     lwe_dimension=630,
     glwe_dimension=4,

@@ -1,15 +1,23 @@
 """Profiling and roofline accounting for the server-side kernels.
 
-The reference's performance tooling is criterion benchmarks; on TPU the
+The reference's performance tooling is criterion benchmarks; here the
 equivalents are jax.profiler traces plus an analytic roofline model: this
-module computes per-op work (u32 lane-ops and HBM bytes) so measured times
-can be compared against compute- and bandwidth-bound limits.
+module computes per-op work from shapes (int8 matrix-product operations,
+u32 lane operations and device-memory bytes) so that measured times can be
+compared with the device's published peaks.
+
+Peaks come from one table keyed by `device_kind`; a device missing from it
+is an error, not a default.
 
 Example:
     >>> from concrete_tpu.profiling import ntt_roofline
     >>> r = ntt_roofline(1024, 2, 3, 256)
-    >>> r.bound_seconds() > 0
+    >>> r.bound_seconds("NVIDIA H100 80GB HBM3") > 0
     True
+    >>> peaks("Unknown Accelerator")
+    Traceback (most recent call last):
+    ...
+    ValueError: no published peaks for device kind 'Unknown Accelerator'
 """
 
 from __future__ import annotations
@@ -18,22 +26,55 @@ import contextlib
 import dataclasses
 import time
 
+# Published dense peaks (NVIDIA H100 data sheet, SXM part, no sparsity; they
+# assume the full 700 W power limit): int8 tensor-core operations per second
+# and device-memory bytes per second.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"int8_ops_per_s": 1.979e15,
+                              "hbm_bytes_per_s": 3.35e12},
+}
+
+
+def peaks(device_kind: str) -> dict:
+    """The published peaks of `device_kind` (jax.Device.device_kind)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}") from None
+
+
+def card_description() -> str:
+    """Name and power limit of every visible NVIDIA card, as `nvidia-smi`
+    reports them (a card set below its maximum power limit runs slower
+    under load, so every measurement carries this line)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return "; ".join(line.strip() for line in out.splitlines()
+                     if line.strip())
+
 
 @dataclasses.dataclass
 class Roofline:
     """Work accounting for one op invocation."""
 
     name: str
-    lane_ops: float          # elementary u32 VPU ops
-    hbm_bytes: float         # minimum HBM traffic (inputs+outputs once)
+    lane_ops: float          # elementary u32 vector-unit ops
+    hbm_bytes: float         # minimum device-memory traffic (in+out once)
+    int8_ops: float = 0.0    # int8 matrix-product ops (2 per MAC)
 
-    def bound_seconds(self, vpu_ops_per_s: float = 4e12, hbm_bytes_per_s: float = 8.1e11):
-        """Speed-of-light time: max(compute, bandwidth) bound.
-
-        Defaults approximate a TPU v5e chip (peak vector u32 throughput and
-        HBM bandwidth); override for other parts.
-        """
-        return max(self.lane_ops / vpu_ops_per_s, self.hbm_bytes / hbm_bytes_per_s)
+    def bound_seconds(self, device_kind: str) -> float:
+        """Speed-of-light time on `device_kind`: the larger of the int8
+        matrix-product bound and the memory bound. The data sheet gives no
+        u32 lane rate, so `lane_ops` does not enter the bound (it stays a
+        lower bound)."""
+        pk = peaks(device_kind)
+        return max(self.int8_ops / pk["int8_ops_per_s"],
+                   self.hbm_bytes / pk["hbm_bytes_per_s"])
 
 
 # Cost model constants (ops per element) for the u32 Montgomery pipeline.
@@ -78,7 +119,7 @@ def pbs_roofline(cfg, batch: int) -> Roofline:
 
 
 @contextlib.contextmanager
-def trace(path: str = "/tmp/concrete_tpu_trace"):
+def trace(path: str):
     """jax.profiler trace context (view with tensorboard / xprof)."""
     import jax
 
@@ -102,10 +143,11 @@ def measure(fn, *args, reps: int = 3):
     return (time.perf_counter() - t0) / reps
 
 
-def report_pbs_efficiency(cfg, batch: int, measured_seconds: float) -> dict:
-    """Compare a measured PBS time against the roofline."""
+def report_pbs_efficiency(cfg, batch: int, measured_seconds: float,
+                          device_kind: str) -> dict:
+    """Compare a measured NTT-path PBS time against its roofline."""
     rl = pbs_roofline(cfg, batch)
-    sol = rl.bound_seconds()
+    sol = rl.bound_seconds(device_kind)
     return {
         "lane_ops": rl.lane_ops,
         "hbm_bytes": rl.hbm_bytes,
@@ -123,14 +165,17 @@ def mxu_external_product_roofline(
     n_sub: int,
     n_limbs: int,
     batch: int,
-    mxu_macs_per_s: float = 1.97e14,
 ) -> Roofline:
     """Blind rotation on the toeplitz-matmul path (core/bootstrap_mxu.py).
 
-    The dominant term is the int8 MXU dot per CMux:
-    [B, R*N] x [R*N, (k+1)*n_limbs*N] with R = level*(k+1)*n_sub. HBM
-    traffic per iteration: the compact rings in, the built RHS out+in, the
-    S accumulator out+in, the digit matrix, and the accumulator update.
+    The dominant term is the int8 dot per CMux:
+    [B, R*N] x [R*N, (k+1)*n_limbs*N] with R = level*(k+1)*n_sub. Memory
+    traffic per iteration: the built table out+in, the dot output S out+in,
+    the digit matrix, and the accumulator update.
+
+    >>> r = mxu_external_product_roofline(630, 1024, 2, 3, 1, 4, 2048)
+    >>> r.int8_ops == 2 * 630 * 2048 * 6144 * 8192
+    True
     """
     big_n = poly_size
     rows = level * glwe_size * n_sub * big_n
@@ -140,13 +185,9 @@ def mxu_external_product_roofline(
     s_bytes = batch * cols * 4
     acc_bytes = glwe_size * batch * big_n * 4
     per_iter_hbm = 2 * rhs_bytes + 2 * s_bytes + batch * rows + 3 * acc_bytes
-    r = Roofline(
+    return Roofline(
         name=f"mxu_blind_rotate(N={big_n}, B={batch})",
         lane_ops=0.0,
         hbm_bytes=float(n_iterations * per_iter_hbm),
+        int8_ops=2.0 * macs,
     )
-    # report the MXU bound through lane_ops-equivalent by reusing the field:
-    # bound_seconds() callers should use mxu_bound_seconds for this op.
-    r.mxu_macs = float(macs)  # type: ignore[attr-defined]
-    r.mxu_bound_s = macs / mxu_macs_per_s  # type: ignore[attr-defined]
-    return r

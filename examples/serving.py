@@ -1,10 +1,10 @@
 """A minimal gate-serving loop: warmup, padded batching, throughput accounting.
 
-Production pattern for the TPU backend (see docs/user_guide.md "Warming up a
+Serving pattern on an accelerator (see docs/user_guide.md "Warming up a
 serving process"): after warmup, every request is padded up to the smallest
 warmed batch tier that fits (ServerKey._pad_size), so a server that warms
 its top tier once serves any request size <= that tier without paying a
-fresh XLA/Mosaic compile (30-550 s per shape through a remote toolchain). Reference workload analog:
+fresh XLA compile. Reference workload analog:
 the per-gate loop in concrete-boolean/src/server_key/mod.rs:133-166 — here a
 whole batch of independent gates is one device dispatch.
 

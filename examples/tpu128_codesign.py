@@ -6,9 +6,8 @@ Shows the round-trip from hardware model to running gates:
 3. generate keys and run encrypted gates at the headline batch;
 4. compare the measured output noise against the NPE prediction.
 
-Run on the TPU host: python examples/tpu128_codesign.py
-(first compile of the gate pipeline takes 30-550 s through the remote
-toolchain; subsequent calls are cached).
+Run on the GPU host: python examples/tpu128_codesign.py
+(the first call compiles the gate pipeline; later calls hit the cache).
 """
 
 import math

@@ -64,14 +64,3 @@ def test_blind_rotate_rejects_wrong_accumulator():
         0, 1 << 32, size=(2, cfg.lwe_dimension + 1), dtype=np.uint32))
     with pytest.raises(checks.PolynomialSizeMismatch):
         bs.blind_rotate(cfg, bsk, lut, lwe)
-
-
-def test_diagnose_cpu_path_is_live(capsys):
-    """The deployment diagnostic must pass end-to-end on the CPU backend
-    (exit 0) and report the backend classification."""
-    from concrete_tpu import diagnose
-
-    assert diagnose.main(timeout_s=60.0) == 0
-    out = capsys.readouterr().out
-    assert "matmul round trip: ok" in out
-    assert "MXU toeplitz path eligible" in out

@@ -240,7 +240,7 @@ def test_full_pbs_noise_vs_npe():
 
 
 def test_keyswitch_limbs_bit_identical_both_widths():
-    """The limb-plane keyswitch (int8 MXU dot, the TPU u64 path) matches the
+    """The limb-plane keyswitch (one int8 dot, the accelerator u64 path) matches the
     plain integer-dot keyswitch bit for bit."""
     from concrete_tpu.core import lwe as lwe_ops
 

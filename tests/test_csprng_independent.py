@@ -1,4 +1,4 @@
-"""Independent CSPRNG stream validation (VERDICT round-1 item #5).
+"""Independent CSPRNG stream validation.
 
 Cross-checks the package's AES-CTR construction — 128-byte batches of a
 little-endian u128 counter (concrete-csprng/src/counter/mod.rs:106-151,

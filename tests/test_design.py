@@ -1,4 +1,4 @@
-"""Tests for the TPU-first parameter co-design module (design.py).
+"""Tests for the parameter co-design module (design.py).
 
 The error model is the load-bearing piece: TPU128_PARAMETERS' security
 grade rests on it, so it is pinned here against the reference's published
@@ -81,10 +81,18 @@ def test_tpu128_is_mxu_clean():
 
 
 def test_cost_model_anchor():
-    # the model must reproduce the measured TFHE_LIB-exact profile it is
-    # anchored on (834 us/iter * 630 iters at B=2048 -> ~3.9k gates/s)
-    rate = design.TpuCostModel().gates_per_s(TFHE_LIB_PARAMETERS, batch=2048)
-    assert 3300 <= rate <= 4600
+    # the model is the TFHE_LIB step's shapes at the H100 data-sheet peaks:
+    # dot [2048, 6144] x [6144, 8192] at 1,979 int8 TOP/s, plus the table
+    # (written + read), digits, accumulator and dot output at 3.35 TB/s
+    b, k, cols, acc = 2048, 6144, 8192, 2048 * 2 * 1024 * 4
+    dot_s = 2.0 * b * k * cols / 1.979e15
+    mem_s = (2 * k * cols + acc + b * k + b * cols * 4 + 2 * acc) / 3.35e12
+    want = b / (630 * (dot_s + mem_s))
+    rate = design.CostModel().gates_per_s(TFHE_LIB_PARAMETERS, batch=2048)
+    assert abs(rate - want) < 1e-6 * want
+    with pytest.raises(ValueError):
+        design.CostModel(device_kind="Unknown Accelerator").gate_us(
+            TFHE_LIB_PARAMETERS)
 
 
 def test_search_returns_shipped_point_class():

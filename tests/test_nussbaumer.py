@@ -10,6 +10,7 @@ polynomial sizes up to 16384, concrete-core .../math/fft/mod.rs:28.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -145,23 +146,19 @@ def test_plan_validation():
 
 
 def test_best_l_model():
-    """Config-aware default L: kernel-eligible chunkings (2L <= 64) first
-    — the fused recombine kernel measured 3.4x over the MAC-optimal
-    out-of-envelope choice at N=16384 — then minimize
-    2L*n_sub*limbs*M^2, tying to the smaller L."""
+    """Config-aware default L: minimize 2L*n_sub*limbs*M^2, tying to the
+    smaller L."""
     mk = lambda N, bl: bs.ServerConfig(
         lwe_dimension=8, glwe_dimension=1, polynomial_size=N,
         pbs_base_log=bl, pbs_level=3, ks_base_log=2, ks_level=5)
     # bl=2: n_sub stays 1 through L=32 (bl_eff=7); L=64 doubles n_sub for
     # the same MACs -> 32 wins the tie by coming first
     assert bsn.NussPlan.best_l(mk(8192, 2)) == 32
-    # bl=7: L=64 has the fewest MACs but 2L=128 exceeds the kernel
-    # envelope; L=32 is the cheapest eligible chunking
-    assert bsn.NussPlan.best_l(mk(8192, 7)) == 32
-    # N=16384: L=128 halves the MACs but measured 3.4x SLOWER than the
-    # kernel-eligible L=32 (docs/performance.md)
+    # bl=7: L=64 has the fewest MACs
+    assert bsn.NussPlan.best_l(mk(8192, 7)) == 64
+    # N=16384: L=128 halves the MACs of L=32
     l16 = bsn.NussPlan.best_l(mk(16384, 2))
-    assert l16 == 32
+    assert l16 == 128
 
 
 def test_server_key_nuss_backend():
@@ -192,24 +189,35 @@ def test_server_key_nuss_backend():
         np.asarray(got_mux), np.asarray(sks_ntt.mux(ca, cb, ca)))
 
 
-def test_recombine_inv_pallas_interpret_matches_xla():
-    """The fused recombine+inverse-transform+fold kernel (the TPU path of
-    _recombine_nuss) must be bit-identical to the XLA u64-lane composition
-    across chunkings and glwe sizes, including limb counts."""
+def _rand_ggsw_ntt(rng, cfg, bits):
+    """A random coefficient-domain GGSW [l, k+1, k+1, N] and its NTT form."""
+    from concrete_tpu.core.ggsw import ggsw_to_ntt
+
+    dt = np.uint32 if bits == 32 else np.uint64
+    g = rng.integers(0, 1 << bits, size=(cfg.pbs_level, cfg.glwe_size,
+                                          cfg.glwe_size, cfg.polynomial_size),
+                     dtype=dt)
+    return g, ggsw_to_ntt(g, cfg.primes, bits)
+
+
+@pytest.mark.parametrize("ks1,N,L", [(2, 256, 4), (3, 128, 4), (2, 512, 8)])
+def test_external_product_nuss_matches_ntt(ks1, N, L):
+    """The Nussbaumer external product (transformed digits, per-frequency
+    int8 dot, u64 limb recombine + inverse transform + fold) equals the
+    exact-NTT external product across chunkings and glwe sizes."""
     rng = np.random.default_rng(19)
-    for (ks1, N, L) in [(2, 256, 4), (3, 128, 4), (2, 512, 8)]:
-        cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
-                              polynomial_size=N, pbs_base_log=7, pbs_level=2,
-                              ks_base_log=4, ks_level=3)
-        plan = bsn.NussPlan.from_config(cfg, L)
-        B = 16
-        s = jnp.asarray(rng.integers(
-            -(1 << 28), 1 << 28,
-            size=(plan.two_l, B, ks1 * plan.limbs_used * plan.m),
-            dtype=np.int32))
-        want = np.asarray(bsn._recombine_nuss_u64(plan, s))
-        got = np.asarray(bsn._recombine_nuss_kernel(plan, s, interpret=True))
-        np.testing.assert_array_equal(got, want)
+    cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
+                          polynomial_size=N, pbs_base_log=7, pbs_level=2,
+                          ks_base_log=4, ks_level=3)
+    g, g_ntt = _rand_ggsw_ntt(rng, cfg, 32)
+    glwe = jnp.asarray(rng.integers(0, 1 << 32, size=(8, ks1, N),
+                                    dtype=np.uint32))
+    rings = jnp.asarray(bsn.bsk_to_nuss(g[None], cfg, L)[0])
+    got = np.asarray(jax.jit(lambda r, x: bsn.external_product_nuss(
+        cfg, r, x, l=L))(rings, glwe))
+    want = np.asarray(jax.jit(lambda g, x: bs.external_product(
+        cfg, g, x))(g_ntt, glwe))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("ks1,N,L,bl,lv", [
@@ -217,44 +225,67 @@ def test_recombine_inv_pallas_interpret_matches_xla():
     (3, 128, 4, 5, 3),
     (2, 512, 8, 7, 2),     # bl_eff = 10 -> n_sub = 2 sub-split
 ])
-def test_rotdig_fwd_nuss_pallas_interpret_matches_xla(ks1, N, L, bl, lv):
-    """The fused rotate+decompose+forward-transform kernel (the TPU front
-    half of a Nussbaumer CMux) must be bit-identical to the XLA composition
-    monomial_mul_chunked + _digit_matrix_nuss, including degrees in the
-    negated wrap half and the sub-digit split."""
+def test_rotdig_nuss_matches_numpy_reference(ks1, N, L, bl, lv):
+    """The front half of a Nussbaumer CMux (chunked rotation, digits,
+    forward transform, sub-digit split): undoing the split and the
+    transform in numpy gives 2L x the gadget digits of the numpy-rotated
+    delta, which recompose to its closest representable value — including
+    degrees in the negated wrap half."""
     rng = np.random.default_rng(23)
     cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
                           polynomial_size=N, pbs_base_log=bl, pbs_level=lv,
                           ks_base_log=4, ks_level=3)
     plan = bsn.NussPlan.from_config(cfg, L)
-    B = 16
-    acc = jnp.asarray(rng.integers(0, 1 << 32, size=(ks1, B, L, N // L),
-                                   dtype=np.uint32))
-    a_hat = jnp.asarray(
-        np.concatenate([rng.integers(0, 2 * N, size=B - 3),
-                        [0, N, 2 * N - 1]]).astype(np.uint32))
-    rot = nb.monomial_mul_chunked(acc, a_hat[None, :], L)
-    want = np.asarray(bsn._digit_matrix_nuss(plan, rot - acc))
-    got = np.asarray(bsn._rotdig_nuss(plan, acc, a_hat, interpret=True))
-    np.testing.assert_array_equal(got, want)
+    B, M = 16, N // L
+    acc = rng.integers(0, 1 << 32, size=(ks1, B, N), dtype=np.uint32)
+    a_hat = np.concatenate([rng.integers(0, 2 * N, size=B - 3),
+                            [0, N, 2 * N - 1]])
+    acc_cm = jnp.asarray(nb.chunk(acc, L)[..., :L, :])
+    d8 = np.asarray(bsn._rotdig_nuss(plan, acc_cm, jnp.asarray(a_hat)))
+
+    # numpy rotation delta in the standard layout
+    rot = np.empty_like(acc)
+    for b, a in enumerate(a_hat):
+        p = np.roll(acc[:, b], int(a % N), axis=-1)
+        p[:, : a % N] = np.uint32(0) - p[:, : a % N]
+        rot[:, b] = np.uint32(0) - p if a >= N else p
+    diff = rot - acc
+    # undo the sub-digit split -> transformed digits [B, 2L, lev, ki, M]
+    d = d8.astype(np.int64).reshape(B, 2 * L, lv, plan.n_sub, ks1, M)
+    w = 1 << (7 * (plan.n_sub - 1 - np.arange(plan.n_sub)))
+    dz = (d * w[None, None, None, :, None, None]).sum(axis=3)
+    # undo the transform: inverse_raw(forward(chunk(x))) == 2L * chunk(x)
+    dz = np.moveaxis(dz, 1, -2)                       # [B, lev, ki, 2L, M]
+    back = np.asarray(nb.inverse_raw(dz, L))
+    assert not np.any(back % (2 * L))
+    digits = nb.unchunk(back[..., :L, :] // (2 * L), L)   # [B, lev, ki, N]
+    assert not np.any(back[..., L:, :])
+    assert np.abs(digits).max() <= 1 << (bl - 1)
+    total = np.zeros((B, ks1, N), dtype=object)
+    for lev in range(lv):
+        total = total + digits[:, lev].astype(object) * (1 << (32 - bl * (lev + 1)))
+    shift = 32 - bl * lv
+    want = diff.astype(object)
+    if shift:
+        want = ((want + (1 << (shift - 1))) >> shift) << shift
+    np.testing.assert_array_equal(total % (1 << 32),
+                                  np.moveaxis(want % (1 << 32), 0, 1))
 
 
-def test_recombine_inv_pallas64_interpret_matches_xla():
-    """The u64-TORUS fused recombine kernel (96-bit word triples) must be
-    bit-identical to the XLA i64-lane composition across chunkings, limb
-    counts, and glwe sizes."""
+@pytest.mark.parametrize("ks1,N,L", [(2, 256, 4), (3, 128, 4), (2, 512, 8)])
+def test_external_product_nuss_u64_matches_ntt(ks1, N, L):
+    """The u64-torus Nussbaumer external product (128-bit key carriage,
+    u64 word-pair recombine) equals the exact-NTT external product."""
     rng = np.random.default_rng(29)
-    for (ks1, N, L) in [(2, 256, 4), (3, 128, 4), (2, 512, 8)]:
-        cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
-                              polynomial_size=N, pbs_base_log=7, pbs_level=2,
-                              ks_base_log=4, ks_level=3, bits=64)
-        plan = bsn.NussPlan.from_config(cfg, L)
-        B = 16
-        s = jnp.asarray(rng.integers(
-            -(1 << 28), 1 << 28,
-            size=(plan.two_l, B, ks1 * plan.limbs_used * plan.m),
-            dtype=np.int32))
-        want = np.asarray(bsn._recombine_nuss_torus64(plan, s))
-        got = np.asarray(
-            bsn._recombine_nuss_torus64_kernel(plan, s, interpret=True))
-        np.testing.assert_array_equal(got, want)
+    cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
+                          polynomial_size=N, pbs_base_log=7, pbs_level=2,
+                          ks_base_log=4, ks_level=3, bits=64)
+    g, g_ntt = _rand_ggsw_ntt(rng, cfg, 64)
+    glwe = jnp.asarray(rng.integers(0, 1 << 64, size=(8, ks1, N),
+                                    dtype=np.uint64))
+    rings = jnp.asarray(bsn.bsk_to_nuss(g[None], cfg, L)[0])
+    got = np.asarray(jax.jit(lambda r, x: bsn.external_product_nuss(
+        cfg, r, x, l=L))(rings, glwe))
+    want = np.asarray(jax.jit(lambda g, x: bs.external_product(
+        cfg, g, x))(g_ntt, glwe))
+    np.testing.assert_array_equal(got, want)
